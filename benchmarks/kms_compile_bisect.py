@@ -1,9 +1,9 @@
-"""Bisect which KMS gate phase breaks the XLA:TPU compiler at >=4 parties.
+"""Bisect which KMS gate phase breaks the compiler at >=4 parties.
 
-The 4-party registry-set KMS program wedged the AOT compiler in r4 (4
-attempts) and in r5 fails fast with `tpu_compile_helper subprocess exit
-code 1`. This harness compiles each phase of the KMS bootstrap SEPARATELY
-on the real device to localise the failure:
+The fused 4-party registry-set KMS program has failed to compile on an
+earlier accelerator (mk/kms.py, split-phase dispatch). This harness compiles
+each phase of the KMS bootstrap SEPARATELY on the real device to localise
+such a failure:
 
     1. streamed gsw blind rotate (fblock.blind_rotate_streamed, 64-bit)
     2. per-party TLev rotate (same, folded batch)
@@ -34,10 +34,9 @@ def main():
     ap.add_argument("--phases", default="1,2,3,4,5")
     args = ap.parse_args()
     jax.config.update("jax_enable_x64", True)
-    cache = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), ".cache", "jax")
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from torus_fhe_tpu.utils.device import REPO_ROOT, configure_compile_cache
+
+    configure_compile_cache()
 
     from torus_fhe_tpu.core.params import PARAMETER_REGISTRY
     from torus_fhe_tpu.mk import kms
@@ -45,7 +44,7 @@ def main():
 
     P = args.parties
     params = PARAMETER_REGISTRY[f"mk_{P}party_kms"]()
-    path = os.path.join(os.path.dirname(cache), "keys",
+    path = os.path.join(REPO_ROOT, ".cache", "keys",
                         f"perf_kmsfb_p{P}_real.npz")
     print(f"# loading {path}", flush=True)
     ck = ser.load_kms_cloud_key(path)
@@ -80,8 +79,7 @@ def main():
         attempt("1 gsw streamed rotate",
                 lambda a, b: fblock.blind_rotate_streamed(
                     a, ck.gsw_sel[:n], b, geom, gp.decomp_length,
-                    gp.log2_base, gp.offset, chunk=kms._stream_chunk(),
-                    use_pallas=False), sacc, bara[:, 0])
+                    gp.log2_base, gp.offset, chunk=kms._stream_chunk()), sacc, bara[:, 0])
     if "2" in want:
         attempt("2 TLev rotate",
                 lambda b: kms._lev_blind_rotate(ck, 1, b, B), bara[:, 1])

@@ -2,7 +2,7 @@
 
 BASELINE configs[4]: k-party encrypted KNN_medical_data inference end-to-end,
 on the reference's own data1.csv, at a REAL registry parameter set, on the
-fast (hi-word F-block) TPU path, K=5 like the reference
+fast (hi-word F-block) path, K=5 like the reference
 (src/KNN_medical_data.cpp:655), finishing with the reference's threshold-
 decryption tail (:531-572) on each decision bit.
 
@@ -35,9 +35,7 @@ def main():
                     help="tiny insecure params (smoke test)")
     ap.add_argument("--batch-tests", action="store_true",
                     help="ride all test rows as one circuit batch axis "
-                         "(faster; at large widths the fused TPU programs "
-                         "have hit vmem limits — per-row is the verified "
-                         "default)")
+                         "(default: one row at a time)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -46,11 +44,9 @@ def main():
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    cache_dir = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), ".cache", "jax")
-    os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from torus_fhe_tpu.utils.device import configure_compile_cache
+
+    configure_compile_cache()
 
     from torus_fhe_tpu.apps import mk_knn
     from torus_fhe_tpu.core.params import (PARAMETER_REGISTRY,

@@ -30,8 +30,8 @@ def main() -> int:
 
     if "--cpu" in sys.argv:
         jax.config.update("jax_platforms", "cpu")
-    # the 64-bit-torus MK sets need real int64; XLA:TPU supports s64 (the
-    # hot rotate rides the int32-limb streamed form either way)
+    # the 64-bit-torus MK sets need real int64 (the hot rotate rides the
+    # int32-limb streamed form either way)
     jax.config.update("jax_enable_x64", True)
 
     import os

@@ -1,6 +1,6 @@
 """Cross-scheme multikey bootstrap timing comparison.
 
-TPU-native counterpart of the reference's
+Counterpart of the reference's
 measurements/test_suites/performance_comparison_test/perf_comp.jl:13-143 —
 time one multikey NAND (linear combine + MK bootstrap + keyswitch) for each
 scheme {3gen (AKO), CCS, KMS} across party counts, reporting min/median wall
@@ -86,12 +86,12 @@ def main():
     ap.add_argument("--kms-split", action="store_true",
                     help="dispatch the KMS gate as one program per bootstrap "
                          "phase (mk_gate_nand_split) — the workaround for "
-                         "registry sets whose fused program crashes the "
-                         "XLA:TPU AOT compile service (>=4-party wedge)")
+                         "registry sets whose fused program does not "
+                         "compile in one piece (>=4-party sets)")
     ap.add_argument("--keygen-only", action="store_true",
                     help="build + cache the cloud keys, skip the timing run "
                          "(host keygens are the long pole: run them on CPU "
-                         "in the background, then time on TPU from cache)")
+                         "in the background, then time on the device from cache)")
     ap.add_argument("--fixed-set", default=None, metavar="SUFFIX",
                     help="the reference protocol (perf_comp.jl:15-17): use "
                          "the FIXED registry set mk_<SUFFIX>party_<scheme> "
@@ -151,7 +151,7 @@ def main():
                 g = mk_fb_geometry(p3, parties)
                 fb_bytes = (g.n * g.D * g.R * g.bs * len(g.cols) * g.bs)
                 if fb_bytes <= args.fb_limit_gb * 2**30:
-                    forms = ("fblock",)  # the fast Pallas path
+                    forms = ("fblock",)  # the fast F-block path
                 else:
                     # expanded key exceeds HBM: the compact/streamed fast form
                     # (chunked on-the-fly expansion — the >=4-party one-chip

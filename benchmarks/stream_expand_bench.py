@@ -2,10 +2,10 @@
 
 Times, on the real device at a given party count's registry set:
   (a) expand_fblock_chunk alone (the per-chunk roll expansion),
-  (b) blind_rotate_pallas on a pre-expanded chunk (the matmul core),
+  (b) blind_rotate_fblock on a pre-expanded chunk (the GEMM core),
   (c) the fused blind_rotate_streamed (expansion + rotate),
 so the expansion overhead of the streamed path is measured, not guessed —
-the input to any in-kernel-expansion work on ops/pallas_rotate.py.
+the input to any work on expanding the key inside the rotate.
 
     python benchmarks/stream_expand_bench.py [--parties 4] [--batch 512]
         [--chunk 64] [--cpu]
@@ -34,11 +34,9 @@ def main():
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    cache = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), ".cache", "jax")
-    os.makedirs(cache, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from torus_fhe_tpu.utils.device import configure_compile_cache
+
+    configure_compile_cache()
 
     import jax.numpy as jnp
     import numpy as np
@@ -81,28 +79,19 @@ def main():
         n_chunks = (steps + args.chunk - 1) // args.chunk
         t_expand_total = t_exp1 * n_chunks
 
-        # (b) pallas rotate on the pre-expanded chunk
-        from torus_fhe_tpu.ops.pallas_rotate import blind_rotate_pallas
-
+        # (b) rotate on the pre-expanded chunk
         geom_c = geom._replace(n=args.chunk)
-        on_tpu = jax.default_backend() == "tpu"
-        if on_tpu:
-            rot_j = jax.jit(lambda f, ba: blind_rotate_pallas(
-                None, f, ba, geom_c, tg32.decomp_length, tg32.log2_base,
-                tg32.offset, stepvec=(1 << 29, jnp.zeros((B,), jnp.int32))))
-        else:
-            rot_j = jax.jit(lambda f, ba: fblock.blind_rotate_fblock(
-                jnp.zeros((B, C, geom.N), jnp.int32), f, ba, geom_c,
-                tg32.decomp_length, tg32.log2_base, tg32.offset))
+        acc0 = jnp.zeros((B, C, geom.N), jnp.int32).at[:, C - 1].set(1 << 29)
+        rot_j = jax.jit(lambda f, ba: fblock.blind_rotate_fblock(
+            acc0, f, ba, geom_c, tg32.decomp_length, tg32.log2_base,
+            tg32.offset))
         t_rot1, _ = timeit(rot_j, fb_c, bara[:, :args.chunk])
         t_rotate_total = t_rot1 * n_chunks
 
         # (c) fused streamed rotate over the full chain
         str_j = jax.jit(lambda s, ba: fblock.blind_rotate_streamed(
-            None, s, ba, geom, tg32.decomp_length, tg32.log2_base,
-            tg32.offset, chunk=args.chunk,
-            stepvec=(1 << 29, jnp.zeros((B,), jnp.int32)),
-            use_pallas=on_tpu))
+            acc0, s, ba, geom, tg32.decomp_length, tg32.log2_base,
+            tg32.offset, chunk=args.chunk))
         t_stream, _ = timeit(str_j, sel, bara, iters=2)
 
     import json

@@ -1,9 +1,9 @@
 // torus_native — host-side native runtime for torus_fhe_tpu.
 //
-// TPU-native framework counterpart of the reference's C++ runtime layer
+// Framework counterpart of the reference's C++ runtime layer
 // (src/threshold_decryption_functions.cpp: nonFFTmul2 schoolbook negacyclic
 // multiplication :377-397, OpenMP share matrix builds :22-99, cblas_dgemm
-// share multiply :194-222). The TPU compute path stays JAX/XLA; this library
+// share multiply :194-222). The device compute path stays JAX/XLA; this library
 // serves the host-side jobs around it — keygen-scale exact polynomial
 // products and threshold share generation — with OpenMP parallelism and pure
 // 64-bit integer arithmetic (bit-exact mod 2^bits, no FFT rounding).

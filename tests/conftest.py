@@ -1,5 +1,5 @@
-"""Test harness: force CPU with 8 virtual devices so multi-chip sharding logic
-is exercised without TPU hardware (the driver's dryrun does the same).
+"""Test harness: force CPU with 8 virtual devices so multi-device sharding
+logic is exercised without accelerator hardware.
 
 jax may already be imported by a pytest plugin before this file runs, so the
 platform is forced through jax.config (which wins over the JAX_PLATFORMS env
@@ -18,15 +18,13 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
-# Persistent XLA compilation cache (the bench.py pattern): the fast tier is
-# compile-bound (8 virtual devices x many parameter sets), and per-module
-# jax.clear_caches() below drops live executables but NOT this disk cache, so
-# repeat suite runs skip most compilation (VERDICT r3 weak #3).
-_cache_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          "..", ".cache", "jax")
-os.makedirs(_cache_dir, exist_ok=True)
-jax.config.update("jax_compilation_cache_dir", _cache_dir)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+# Persistent XLA compilation cache: the fast tier is compile-bound (8 virtual
+# devices x many parameter sets), and per-module jax.clear_caches() below
+# drops live executables but NOT this disk cache, so repeat suite runs skip
+# most compilation.
+from torus_fhe_tpu.utils.device import configure_compile_cache  # noqa: E402
+
+configure_compile_cache()
 
 assert all(d.platform == "cpu" for d in jax.devices()), jax.devices()
 
@@ -44,6 +42,10 @@ def pytest_configure(config):
         "slow: production-parameter test (skipped unless --runslow or "
         "RUN_SLOW=1 in the environment); the fast default subset covers the "
         "same code paths at reduced sizes")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs an NVIDIA GPU; takes the `gpu_card` fixture, which "
+        "skips the test when there is none")
 
 
 def pytest_collection_modifyitems(config, items):
@@ -53,6 +55,22 @@ def pytest_collection_modifyitems(config, items):
     for item in items:
         if "slow" in item.keywords:
             item.add_marker(skip)
+
+
+@pytest.fixture
+def gpu_card():
+    """Skips the test unless an NVIDIA GPU is present. Decided here, at run
+    time, so every xdist worker collects the same tests; asked of nvidia-smi
+    because this process's JAX is held to the CPU."""
+    import subprocess
+
+    try:
+        found = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                               timeout=60).returncode == 0
+    except (OSError, subprocess.TimeoutExpired):
+        found = False
+    if not found:
+        pytest.skip("needs an NVIDIA GPU")
 
 
 @pytest.fixture(autouse=True, scope="module")

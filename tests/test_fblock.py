@@ -1,5 +1,5 @@
-"""F-block blind rotation (ops/fblock.py, ops/pallas_rotate.py): bit-exactness
-against the conv-kernel scan path and the schoolbook oracle.
+"""F-block blind rotation (ops/fblock.py): bit-exactness against the
+limb-kernel scan path and the schoolbook oracle.
 
 Mirrors the reference's `_wo_FFT` exact-twin test pattern
 (3-gen-mk-tfhe/src/tgsw.jl:152-156): every fast kernel form must reproduce the
@@ -51,28 +51,58 @@ def test_fblock_matches_scan(N):
     np.testing.assert_array_equal(np.asarray(ref), np.asarray(got))
 
 
-@pytest.mark.parametrize("N,B", [(64, 4), (256, 3)])
-def test_pallas_matches_fblock(N, B):
-    from torus_fhe_tpu.ops.pallas_rotate import blind_rotate_pallas
+@pytest.mark.parametrize("B", [1, 3])
+def test_contraction_exact_at_fast_set_width(B):
+    """One F-block step at the real tfhe_128_tpu_fast geometry (N=512, k=2,
+    l=2, 11 limb columns: a (4B, 6144) @ (6144, 1408) int8 dot) against the
+    schoolbook — the comparison chip_smoke.py makes on the card at B=4096."""
+    import chip_smoke
 
-    params = _exact_params(N=N)
-    sk, ck, acc, bara = _keys_and_inputs(params, B=B)
-    geom = bootstrap._bk_geometry(params)
-    tg = params.tgsw
-
-    ref = fblock.blind_rotate_fblock(acc.a, ck.bootstrap_key.fb, bara, geom,
-                                     tg.decomp_length, tg.log2_base, tg.offset)
-    got = blind_rotate_pallas(acc.a, ck.bootstrap_key.fb, bara, geom,
-                              tg.decomp_length, tg.log2_base, tg.offset,
-                              b_tile=8, interpret=True)
-    np.testing.assert_array_equal(np.asarray(ref), np.asarray(got))
+    chip_smoke.check_fblock_contraction(B, np.random.default_rng(B))
 
 
-@pytest.mark.parametrize("backend", ["fblock", "pallas"])
+@pytest.mark.parametrize("bits", [32, 64])
+def test_resolver_picks_fblock_scan(bits):
+    """"auto" runs the F-block scan whenever the key has an F-block form, at
+    either torus width, and it matches the limb-kernel scan bit for bit."""
+    params = make_test_params(n=4, N=64, bits=bits)
+    _, ck = api.make_key_pair(jax.random.PRNGKey(bits), params,
+                              forms=("conv", "fblock"))
+    bk = ck.bootstrap_key
+    assert bootstrap._resolve_backend(bk) == "fblock"
+    assert bootstrap._resolve_backend(bootstrap.BootstrapKey(bk.kernels)) \
+        == "scan"
+    dt = np.int32 if bits == 32 else np.int64
+    rng = np.random.default_rng(bits)
+    acc = rlwe_noiseless_trivial(
+        jnp.asarray(rng.integers(-2**31, 2**31, (2, 64)).astype(dt)),
+        params.rlwe, (2,))
+    bara = jnp.asarray(rng.integers(0, 128, (2, 4)), jnp.int32)
+    got = bootstrap.blind_rotate(acc, bk, bara, params).a
+    ref = bootstrap.blind_rotate(acc, bootstrap.BootstrapKey(bk.kernels),
+                                 bara, params).a
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
+
+
+def test_no_interpret_mode_in_library():
+    """No library path runs a kernel in an interpreter or imports a
+    platform-specific Pallas backend."""
+    import pathlib
+
+    import torus_fhe_tpu
+
+    root = pathlib.Path(torus_fhe_tpu.__file__).parent
+    for path in root.rglob("*.py"):
+        text = path.read_text()
+        assert "interpret=" not in text, path
+        assert "pallas" not in text.lower(), path
+
+
+@pytest.mark.parametrize("backend", ["fblock", "scan"])
 def test_gate_and_truth_table(backend):
     params = _exact_params()
     key = jax.random.PRNGKey(3)
-    sk, ck = api.make_key_pair(key, params, forms=("fblock",))
+    sk, ck = api.make_key_pair(key, params, forms=("conv", "fblock"))
     xs = jnp.asarray([False, False, True, True])
     ys = jnp.asarray([False, True, False, True])
     cx = api.encrypt(jax.random.PRNGKey(4), sk, xs)
@@ -138,7 +168,7 @@ def test_rounded_body_bk_all_backends():
     ys = jnp.asarray([True, True, False, False])
     cx = api.encrypt(jax.random.PRNGKey(13), sk, xs)
     cy = api.encrypt(jax.random.PRNGKey(14), sk, ys)
-    for backend in ("scan", "fblock", "pallas"):
+    for backend in ("scan", "fblock"):
         bootstrap.set_rotate_backend(backend)
         try:
             out = gates.gate_and(ck, cx, cy)

@@ -63,9 +63,8 @@ def test_16party_gadget_nand_two_parties():
 
 def test_8party_streamed_gate_truth_table():
     """8-party NAND through the STREAMED compact F-block form at shrunken
-    n/N — the one-chip >=4-party TPU configuration (perf_comp 8p row runs
-    exactly this form at the registry set), previously covered only by
-    trials=2 TPU perf rows (VERDICT r4 weak #5). Fast tier: tiny sizes keep
+    n/N — the one-chip >=4-party configuration (perf_comp 8p row runs
+    exactly this form at the registry set). Fast tier: tiny sizes keep
     the 8-party keygen + 16*n-step chain under a minute on CPU."""
     from torus_fhe_tpu import mk
     from torus_fhe_tpu.core.params import test_parameters_3gen

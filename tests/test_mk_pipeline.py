@@ -83,6 +83,27 @@ def test_pipelined_gate_decrypts(setup):
     np.testing.assert_array_equal(dec, ~(np.asarray(xs) & np.asarray(ys)))
 
 
+def test_pipelined_gate_with_committed_key(setup):
+    """On an accelerator keygen commits the cloud key to one device
+    (mk_cloud_keygen -> to_device) while the pipeline's output is replicated
+    over the mesh: the keyswitch must still run, bit-identical."""
+    from torus_fhe_tpu.core.torus import encode_message
+    from torus_fhe_tpu.mk.samples import mk_encrypt, mk_lwe_noiseless_trivial
+
+    sks, ck, m, fb_sh = setup
+    committed = jax.device_put(ck, jax.devices()[0])
+    lwe_keys = [sk.lwe for sk in sks]
+    xs = jnp.asarray([False, True, True, False] * 2)
+    cx = mk_encrypt(jax.random.PRNGKey(212), lwe_keys, xs, PARAMS)
+    t = mk_lwe_noiseless_trivial(encode_message(1, 8), PARAMS.lwe, PARTIES,
+                                 xs.shape) - cx - cx
+    mu = encode_message(1, 8, jnp.int64)
+    got = mk_pipeline.mk_bootstrap_pipelined(committed, fb_sh, mu, t, m)
+    want = mk_pipeline.mk_bootstrap_pipelined(ck, fb_sh, mu, t, m)
+    np.testing.assert_array_equal(np.asarray(got.a), np.asarray(want.a))
+    np.testing.assert_array_equal(np.asarray(got.b), np.asarray(want.b))
+
+
 def test_pipelined_rotate_streamed_compact_key_bit_exact(setup):
     """The COMPACT party-sharded key (build_sharded_mk_sel) + per-chip
     streamed expansion must be bit-exact vs the expanded-key pipeline AND

@@ -1,7 +1,7 @@
 """Exactness tests for the negacyclic polynomial kernels.
 
 Mirrors the reference's kernel-vs-oracle strategy (src/ntt-test.cpp:50-93 and
-the Julia `_wo_FFT` twins): every MXU path must agree bit-for-bit with an
+the Julia `_wo_FFT` twins): every int8 product path must agree bit-for-bit with an
 independent schoolbook computation.
 """
 
@@ -55,7 +55,7 @@ def test_limb_split_roundtrip_traced():
 @pytest.mark.parametrize("backend", ["conv", "matmul"])
 @pytest.mark.parametrize("bits", [32, 64])
 def test_negacyclic_extern_product_exact(backend, bits):
-    """digits x torus kernels == schoolbook, for both MXU backends."""
+    """digits x torus kernels == schoolbook, for both product backends."""
     old = poly.get_backend()
     poly.set_backend(backend)
     try:

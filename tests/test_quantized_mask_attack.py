@@ -104,7 +104,7 @@ def test_shipped_sets_do_not_quantize_masks():
 
 
 def test_sound_sets_keep_full_masks():
-    """The fixed TPU sets: every mask limb present in the F-block columns;
+    """The fixed tfhe_128_tpu* sets: every mask limb present in the F-block columns;
     only body limbs are dropped (rounded at keygen, zero info loss)."""
     from torus_fhe_tpu.boot.bootstrap import _bk_geometry
     from torus_fhe_tpu.ops.poly import n_limbs_for

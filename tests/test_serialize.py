@@ -35,7 +35,7 @@ def test_key_and_ciphertext_roundtrip(tmp_path):
 
 def test_cloud_key_fast_form_roundtrip(tmp_path):
     """Saved keys are compact (raw TGSW samples); load rebuilds the requested
-    MXU form(s) — incl. the F-block fast form — bit-identically to keygen's."""
+    product form(s) — incl. the F-block fast form — bit-identically to keygen's."""
     from torus_fhe_tpu.boot import bootstrap
 
     sk, ck = api.make_key_pair(jax.random.PRNGKey(3), PARAMS,
@@ -76,7 +76,7 @@ def test_share_set_roundtrip(tmp_path):
 
 def test_mk_cloud_key_roundtrips(tmp_path):
     """All three MK schemes' cloud keys round-trip through files; the 3gen
-    key rebuilds both MXU forms from the compact samples (tfhe_io parity,
+    key rebuilds both product forms from the compact samples (tfhe_io parity,
     src/KeyGen.cpp:41-51)."""
     from torus_fhe_tpu import mk
     from torus_fhe_tpu.core.params import (test_parameters_3gen,

@@ -1,8 +1,8 @@
-"""torus_fhe_tpu — a TPU-native TFHE framework (JAX/XLA/Pallas).
+"""torus_fhe_tpu — a TFHE framework in JAX/XLA.
 
 Brand-new implementation of the full capability surface of the reference
 Torus-FHE project (threshold TFHE in C++ + 3-generation multikey TFHE in
-Julia), redesigned batch-first for TPU: exact int8 MXU convolutions replace
+Julia), redesigned batch-first for accelerators: exact int8 matrix products replace
 the f64 FFT, lax.scan replaces the CMux loop, one-hot matmuls replace
 keyswitch gathers, and jax.sharding meshes replace OpenMP/Distributed.jl.
 """

@@ -3,7 +3,7 @@
 Capability match for the reference's CNN workloads — CNN.jl / CNN_CPU.jl
 (a CUDA conv3d over (H, W) inputs with `number_kernels` filters, stride and
 valid padding; 3-gen-mk-tfhe/CNN.jl:9-48, 85-116) and the encrypted
-`mk_conv2d` circuit (3gen_mk_gates.jl) — but TPU-native and *stronger* than
+`mk_conv2d` circuit (3gen_mk_gates.jl) — but batch-first and *stronger* than
 CNN.jl itself: the input image is encrypted bit-sliced, and every
 (filter, out_y, out_x) output word rides the trailing batch axes, so the
 whole layer's ripple-carry adder network runs as ONE batched bootstrap

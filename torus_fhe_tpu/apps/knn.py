@@ -1,6 +1,6 @@
 """Encrypted K-nearest-neighbours over homomorphic integer words.
 
-TPU-native rework of src/KNN_medical_data.cpp: bitwise-encrypt feature rows,
+Rework of src/KNN_medical_data.cpp: bitwise-encrypt feature rows,
 Manhattan distance per train row (|a-b| via two differences + sign-select MUX,
 :161-263), bubble-sort rows by distance with labels as payload (:362-489),
 majority vote of the K nearest labels through ripple adders and a threshold
@@ -109,8 +109,8 @@ def threshold_tail(decision: LweSample, sk: SecretKey, rng_key, t: int = 3,
     sweep 0.0125 → 1e-3 (halving), sign-decoding coefficient 0.
 
     Runs on the HOST CPU backend: threshold decryption is the client-side
-    stage (the cloud's TPU work ends at the gate evaluation), and its exact
-    int64 ring products have no TPU lowering."""
+    stage (the cloud's device work ends at the gate evaluation), and its
+    exact int64 ring products are host math."""
     from ..threshold.convert import tlwe_from_lwe
     from ..threshold.decrypt import threshold_decrypt
     from ..threshold.shares import share_secret_streaming

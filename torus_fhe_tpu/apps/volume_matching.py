@@ -1,6 +1,6 @@
 """Encrypted volume matching (dark-pool order matching) over multikey TFHE.
 
-TPU-native rework of 3-gen-mk-tfhe/VolumeMatching.jl / VolMatch2.jl: buy and
+Rework of 3-gen-mk-tfhe/VolumeMatching.jl / VolMatch2.jl: buy and
 sell order volumes arrive encrypted under the parties' multikey; the engine
 computes the matched volume per order without decrypting anything:
 
@@ -11,7 +11,7 @@ computes the matched volume per order without decrypting anything:
 The reference fans step 3 out over up to 106 Distributed.jl workers
 (VolMatch2.jl:4, VolumeMatching.jl:108-176); here the order index is a batch
 axis, so every order's subtract/compare/mux runs in ONE batched bootstrap
-program — and shards over the mesh batch axis on a pod slice.
+program — and shards over the mesh batch axis across cards.
 """
 
 from __future__ import annotations

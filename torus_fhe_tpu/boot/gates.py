@@ -1,6 +1,6 @@
 """The bootstrapped boolean gate set, batch-first.
 
-TPU-native rework of 3-gen-mk-tfhe/src/gates.jl: each two-input gate is one
+Rework of 3-gen-mk-tfhe/src/gates.jl: each two-input gate is one
 affine combination of the input batches plus one gate bootstrap; NOT is free;
 MUX costs two rotate-extracts and one keyswitch. All gates map (B,)-batches
 of encrypted bits to (B,)-batches — the throughput unit of the whole
@@ -31,7 +31,8 @@ def _encode_static(mu: int, message_space: int) -> int:
 
 
 # plain Python ints precomputed at import (outside any trace): keeps the
-# bootstrap test-vector mu static so the pallas stepvec path engages under jit
+# bootstrap test-vector mu static, so eager gate calls reuse one jitted
+# program per mu (bootstrap.bootstrap)
 _EIGHTHS = {s: _encode_static(s, 8) for s in (-1, 1)}
 _QUARTERS = {s: _encode_static(s, 4) for s in (-1, 1)}
 _EIGHTH = _EIGHTHS.__getitem__

@@ -1,12 +1,12 @@
-"""LWE key switching as a one-hot int8 matmul on the MXU.
+"""LWE key switching as a one-hot int8 matmul.
 
 The reference keyswitch (3-gen-mk-tfhe/src/keyswitch.jl:45-80) walks
 n_in x decomp_length digit lookups per ciphertext, subtracting rows of a
-(base-1, l, n_in) table of LWE samples. On TPU that access pattern is a
-scattered gather from an ~80 MB table — hostile to HBM. Instead we express
+(base-1, l, n_in) table of LWE samples. On an accelerator that access
+pattern is a scattered gather from an ~80 MB table — hostile to HBM. Instead we express
 the same sum as a dense matmul: a {0,1} one-hot matrix over (i, j, h) rows
-times the byte-limb-packed table, so the whole batch of ciphertexts rides the
-MXU with exact int32 accumulation. Skipped h=0 rows contribute nothing, which
+times the byte-limb-packed table, so the whole batch of ciphertexts is one int8
+matmul with exact int32 accumulation. Skipped h=0 rows contribute nothing, which
 reproduces the reference's `if a[i,j] != 0` noise-free skip exactly.
 """
 
@@ -70,7 +70,7 @@ def keyswitch_keygen(key, alpha: float, params: KeyswitchParams,
 
 
 def keyswitch(ks: KeyswitchKey, params: KeyswitchParams, sample: LweSample) -> LweSample:
-    """Batched keyswitch (keyswitch.jl:45-80), MXU formulation.
+    """Batched keyswitch (keyswitch.jl:45-80), one-hot matmul formulation.
 
     sample: batch of LWE over the input (extracted) key, a: (..., n_in) with
     any leading batch shape.

@@ -2,7 +2,7 @@
 
 The reference left this as a TODO — src/Convert.cpp:103: "TODO: Pack all 32
 lwe ciphertexts into one tlwe ciphertext" (its `src/pack.cpp` is an empty
-stub). This module implements it for real, TPU-first: m <= N LWE ciphertexts
+stub). This module implements it for real, batch-first: m <= N LWE ciphertexts
 {(a_i, b_i)} under key s become ONE RLWE ciphertext whose phase polynomial
 carries phase_i = b_i - <a_i, s> at coefficient i.
 
@@ -15,7 +15,7 @@ A_j(X) = sum_i a_{i,j} X^i and B(X) = sum_i b_i X^i,
 has phase B - sum_j A_j s_j - noise = sum_i phase_i X^i - noise: the
 homomorphic payloads of all m inputs, packed.
 
-On TPU the double sum is ONE exact int8 MXU contraction — the same
+The double sum is ONE exact int8 contraction — the same
 negacyclic_extern_product machinery as the bootstrap (ops/poly.py), with
 R = n*l reduction rows. Noise: sum of n*l digit-convolutions of the KSK
 noise, sigma ~ sqrt(n*l*N*Var(d)) * alpha — a few 1e-3 at the 128-bit sizes,

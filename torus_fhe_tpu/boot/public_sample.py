@@ -1,6 +1,6 @@
 """Public sampling: fresh ciphertexts derived without the secret key.
 
-TPU-native rework of src/public_sample_LWE.cpp / _LWE_2.cpp /
+Rework of src/public_sample_LWE.cpp / _LWE_2.cpp /
 _RLWE_01.cpp. The trick (public_sample_LWE.cpp:49-60): for any encrypted bit
 x, ``bootsXOR(x, x)`` is a *fresh* encryption of 0 whose noise is the
 bootstrap output noise, independent of x's value or noise. Adding a trivial
@@ -9,7 +9,7 @@ no secret key, only the cloud key and one existing ciphertext.
 
 Batch-first like everything else: one call manufactures a whole batch of
 fresh ciphertexts from a batch seed ciphertext via a single bootstrapped
-program on the MXU.
+program.
 """
 
 from __future__ import annotations

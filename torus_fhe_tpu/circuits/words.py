@@ -1,6 +1,6 @@
 """Homomorphic integer-word circuits over bootstrapped gates, batch-first.
 
-TPU-native rework of the reference's 32-bit building blocks
+Rework of the reference's 32-bit building blocks
 (src/bootstrap_modules.cpp: onesComp :13-18, FullAdder :20-44, difference
 :284-339, bubble_sort :341-387) and the encrypted-minimum comparator of
 3-gen-mk-tfhe/tutorial.jl:43-63.

@@ -1,6 +1,6 @@
 """Frozen parameter dataclasses and the named parameter-set registry.
 
-TPU-native port of the reference's parameter layer:
+Port of the reference's parameter layer:
 - single-key scheme parameters (3-gen-mk-tfhe/src/api.jl:4-115),
 - 3rd-gen multikey parameters (3-gen-mk-tfhe/src/mk_api.jl:32-322),
 - the C++ libthfhe gate-bootstrapping parameter set with n = N = 1024
@@ -104,7 +104,7 @@ class SchemeParams:
     ks_noise_stddev: float
 
     max_parties: int = 1
-    # TPU knob: dropped low BODY bytes in the F-block bootstrapping key
+    # F-block knob: dropped low BODY bytes in the F-block bootstrapping key
     # (BK compression). Sound: the body is rounded at keygen (a
     # deterministic post-hoc degradation of a full-entropy sample; extra
     # noise ~2^(8*drop)/sqrt(12) per coefficient, unamplified). MASK limbs
@@ -161,7 +161,7 @@ def tfhe_parameters_128(rlwe_mask_size: int = 1) -> SchemeParams:
 
 
 def tfhe_parameters_128_tpu() -> SchemeParams:
-    """The 128-bit CGGI set tuned for TPU throughput: identical crypto
+    """The 128-bit CGGI set tuned for int8 GEMM throughput: identical crypto
     parameters to tfhe_parameters_128 — the reference's own l=3/Bg=2^7 gadget
     (api.jl:100-115) — with the bootstrapping key's lowest BODY byte rounded
     away at keygen (sound: a deterministic post-hoc rounding of a
@@ -182,14 +182,14 @@ def tfhe_parameters_128_tpu() -> SchemeParams:
 
 
 def tfhe_parameters_128_tpu_fast() -> SchemeParams:
-    """128-bit module-LWE CGGI set with an MXU-optimal shape: k=2, N=512,
+    """128-bit module-LWE CGGI set with a GEMM-friendly shape: k=2, N=512,
     l=2, Bg=2^8, body rounded to 2^8 (sound, see tfhe_parameters_128_tpu).
 
     The RLWE layer moves from (k=1, N=1024) to module rank 2 at N=512 —
     the SAME total lattice dimension k*N = 1024 and the same noise 2^-25,
     under the standard module-LWE assumption (Kyber-style; the extracted
-    LWE size k*N and the keyswitch are unchanged). Why it is fast on the
-    MXU: per CMux step the contraction costs (N*R)*(cols*N) MACs with
+    LWE size k*N and the keyswitch are unchanged). Why it is fast on
+    int8 matrix hardware: per CMux step the contraction costs (N*R)*(cols*N) MACs with
     R = l*(k+1) and cols = (k+1) limb-columns-ish, i.e. proportional to
     (k*N)^2 * l * ((k+1)/k)^2 — the module split k=1 -> 2 cuts the
     schoolbook-negacyclic MAC count by (4/2.25) = 1.78x at equal security.

@@ -1,10 +1,10 @@
 """Torus arithmetic over fixed-point integers (Torus32 = int32, Torus64 = int64).
 
-TPU-native re-implementation of the torus numeric layer of the reference
+Re-implementation of the torus numeric layer of the reference
 (Torus-FHE: 3-gen-mk-tfhe/src/numeric-functions.jl:1-132). A real torus element
 t in [-1/2, 1/2) is represented as round(t * 2^bits) stored in a signed integer
 of width ``bits``; addition/subtraction/multiplication wrap naturally in two's
-complement, which XLA integer arithmetic provides for free on TPU.
+complement, which XLA integer arithmetic provides for free.
 """
 
 from __future__ import annotations

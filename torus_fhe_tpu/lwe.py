@@ -1,6 +1,6 @@
 """LWE keys and samples as batched pytrees.
 
-TPU-native rework of 3-gen-mk-tfhe/src/lwe.jl. A "sample" here is an array of
+Rework of 3-gen-mk-tfhe/src/lwe.jl. A "sample" here is an array of
 ciphertexts: ``a`` has shape (..., n) and ``b`` shape (...,); every operation
 is batch-first so thousands of ciphertexts move through one XLA program.
 Noise-variance bookkeeping is carried as a scalar python float on the type

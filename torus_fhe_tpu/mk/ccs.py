@@ -1,4 +1,4 @@
-"""1st-gen (CCS, Chen–Chillotti–Song) multikey TFHE — TPU-native.
+"""1st-gen (CCS, Chen–Chillotti–Song) multikey TFHE.
 
 Rework of the reference CCS scheme (3-gen-mk-tfhe/src/mk_internals.jl):
 shared key + per-party public keys (mk_internals.jl:162-300), uni-encryption
@@ -6,10 +6,10 @@ shared key + per-party public keys (mk_internals.jl:162-300), uni-encryption
 the party-sequential blind rotate (:805-852) and per-party keyswitch
 (:712-726).
 
-TPU-first design notes:
+Design notes:
   * The CCS accumulator is a (parties+1)-poly MKRLWE sample whose mask grows
     with the party count (unlike AKÖ). It is batched as one (B, P+1, N) array.
-  * Every polynomial product in `UniProduct_old` is an exact int8-limb MXU
+  * Every polynomial product in `UniProduct_old` is an exact int8-limb
     contraction (ops/poly.py) of gadget digits against pre-packed kernels —
     where the reference runs f64 FFTs and reasons about the 54-bit budget
     (mk_internals.jl:674-681), this path has *zero* rounding noise.
@@ -257,7 +257,7 @@ def ccs_cloud_keygen(key, secret_keys: Sequence[CCSSecretKey],
 
 def _gadget_contract(x, kern, gp: TGswParams):
     """sum_l g(x)_l ⊛ kern_l for each input poly: x (..., N) torus, kern
-    (L, l, N) packed int8 → (..., N) torus. The exact-MXU form of the
+    (L, l, N) packed int8 → (..., N) torus. The exact int8 form of the
     reference's decompose → FFT → pointwise-sum → iFFT chains
     (UniProduct_old, mk_internals.jl:486-529)."""
     lead = x.shape[:-1]
@@ -353,7 +353,7 @@ def ccs_blind_rotate_fb(acc, ck: CCSCloudKey, bara, chunk: int | None = None):
     """The CCS CMux chain on the F-block backend: per step-chunk, the compact
     d1/f0/f1 lines expand on device (ops/fblock.expand_fblock_chunk) and every
     gadget contraction of UniProduct_old (mk_internals.jl:477-536) runs as
-    block-circulant int8 MXU matmuls — same math as ccs_blind_rotate,
+    block-circulant int8 matmuls — same math as ccs_blind_rotate,
     bit-identical output, none of the conv lowering.
     """
     from ..ops import fblock
@@ -435,7 +435,7 @@ def mk_rlwe_extract_sample(acc) -> MKLweSample:
 def mk_keyswitch(ck_ks_mats, ks_params, n_out: int, u: MKLweSample) -> MKLweSample:
     """Per-party keyswitch: party p's table applied to party p's extracted
     mask, b-parts summed (mk_keyswitch, mk_internals.jl:712-726). One einsum
-    over (party, one-hot digit) rides the MXU."""
+    over (party, one-hot digit) is one int8 matmul."""
     l, lb = ks_params.decomp_length, ks_params.log2_base
     base = 1 << lb
     lead = u.b.shape

@@ -1,6 +1,6 @@
 """3rd-gen multikey bootstrapped gates and integer circuits, batch-first.
 
-TPU-native rework of 3-gen-mk-tfhe/src/3gen_mk_gates.jl. Gates are one affine
+Rework of 3-gen-mk-tfhe/src/3gen_mk_gates.jl. Gates are one affine
 combination of MK ciphertext batches plus one multikey bootstrap; the integer
 circuits (ripple adders, comparators, shift-add multiplier, conv2d) mirror the
 reference's topology with the bit-position loops kept sequential (carry chain)
@@ -29,9 +29,8 @@ def _trivial_like(ck: MKCloudKey, x: MKLweSample, mu):
 
 def _mu(ck) -> int:
     """The bootstrap test-vector value as a PURE PYTHON int: jnp ops always
-    return tracers under jit, which would silently disable the static-mu
-    Pallas stepvec fast path (boot3gen._fast_rotate_extract) — the same trap
-    the single-key gates avoid with _encode_static (boot/gates.py)."""
+    return tracers under jit, and a static mu lets eager gate calls reuse one
+    jitted program per mu (boot3gen._eager_jit_dispatch)."""
     if ck.params.rlwe_bits == 32:
         return 1 << 29  # encode_message(1, 8) on the 32-bit torus
     if not jax.config.jax_enable_x64:

@@ -1,6 +1,6 @@
 """3rd-generation (AKÖ) multikey TFHE key material.
 
-TPU-native rework of the AKÖ scheme's keygen pipeline
+Rework of the AKÖ scheme's keygen pipeline
 (3-gen-mk-tfhe/src/mk_internals.jl:177-345, src/tgsw_3gen.jl:3-98,
 src/3gen_mk_internals.jl:10-55, demo pipeline multikey_3gen.jl:15-32):
 
@@ -16,7 +16,7 @@ as a standard TGSW kernel tensor of shape (l, 2, 2, N):
 
 so the 3gen external product (tgsw_3gen.jl:102-113) IS the single-key external
 product of ops/poly.py — c1' = Σ g(c1)⊛part3 + g(c0)⊛part4, c0' = Σ g(c1)⊛part2
-+ g(c0)⊛part1 — and the whole exact-MXU blind-rotate machinery is reused with
++ g(c0)⊛part1 — and the whole exact int8 blind-rotate machinery is reused with
 parties × n CMux steps. All keygen math runs host-side (exact limb FFT) and
 ships packed int8 kernels to the device once.
 """
@@ -135,9 +135,9 @@ class MKCloudKey:
     packed blind-rotate kernels over parties×n CMux steps plus the stacked
     per-party keyswitch tables.
 
-    ``bk_fb`` is the fast TPU form: the 64-bit-torus BK *hi-word rounded* to
+    ``bk_fb`` is the fast form: the 64-bit-torus BK *hi-word rounded* to
     Torus32 granularity and laid out as a 32-bit F-block key (see
-    hi_round_samples) — drives the fused Pallas kernel. ``bk_fb_sel`` is the
+    hi_round_samples) — drives the F-block GEMM scan. ``bk_fb_sel`` is the
     COMPACT fast form (ops/fblock.build_sel): the same rounded key as
     extended limb lines, ~256x smaller, expanded on the fly per step chunk
     (ops/fblock.blind_rotate_streamed) — the form that gives >=4-party
@@ -175,8 +175,7 @@ def mk_fb_supported(params: SchemeParams3Gen) -> bool:
 def mk_fb_stream_supported(params: SchemeParams3Gen) -> bool:
     """The streamed compact F-block form covers EVERY 3gen set: hi-word
     32-bit lines when mk_fb_supported, else exact 64-bit lines (no rounding,
-    wide digits split into shift-combined int8 blocks; XLA scan, not the
-    Pallas kernel)."""
+    wide digits split into shift-combined int8 blocks)."""
     return params.rlwe_bits == 64
 
 
@@ -238,8 +237,8 @@ def mk_cloud_keygen(key, secret_keys: Sequence[MKSecretKey],
     CRP → pubkeys → common pubkey → per-party BK parts (packed) → KSKs.
 
     ``forms``: "conv" packs the scan-backend kernels; "fblock" additionally
-    builds the hi-word-rounded 32-bit F-block key (the fast Pallas path on
-    TPU; requires mk_fb_supported(params)); "fbstream" builds the compact
+    builds the hi-word-rounded 32-bit F-block key (the fast path; requires
+    mk_fb_supported(params)); "fbstream" builds the compact
     fast form instead (expanded per step chunk at rotate time — REQUIRED for
     >=4-party production sets whose expanded key exceeds one chip's HBM).
     ``keep_samples`` retains the compact raw samples for serialization."""
@@ -251,7 +250,7 @@ def mk_cloud_keygen(key, secret_keys: Sequence[MKSecretKey],
     if params.rlwe_bits == 64:
         # without x64 the JAX-side samplers silently truncate to int32 and
         # the key degenerates to a near-zero mask (insecure). Keygen needs
-        # x64; x64-free TPU *evaluation* is fine via a serialized key + the
+        # x64; x64-free *evaluation* is fine via a serialized key + the
         # hi-word fast path.
         assert jax.config.jax_enable_x64, \
             "64-bit MK keygen requires jax_enable_x64=True"
@@ -277,7 +276,7 @@ def mk_cloud_keygen(key, secret_keys: Sequence[MKSecretKey],
                                         common.b, crp.a, params)
             all_samples.append(samples)
             if "conv" in forms:
-                # pack each key bit's TGSW into MXU conv kernels
+                # pack each key bit's TGSW into int8 limb kernels
                 kern = samples.reshape(samples.shape[0],
                                        samples.shape[1] * 2, 2,
                                        samples.shape[-1])

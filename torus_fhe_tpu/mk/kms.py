@@ -1,4 +1,4 @@
-"""2nd-gen (KMS, Kwak–Min–Song) multikey TFHE — TPU-native.
+"""2nd-gen (KMS, Kwak–Min–Song) multikey TFHE.
 
 Rework of the reference KMS scheme (3-gen-mk-tfhe/src/new_mk_internals.jl,
 src/tlev.jl): each party ships (a) standard single-key TGSW encryptions of its
@@ -10,14 +10,14 @@ relinearisation back into the multikey accumulator (`mk_lev_rlwe_mul`,
 :185-207, using `UniProduct_new`, :85-127). The `fast_boot` v2 variant skips
 party 1's TLev phase (:255-272).
 
-TPU-first notes:
-  * The per-party TLev rotate is the existing exact-MXU CMux scan with the
+Design notes:
+  * The per-party TLev rotate is the existing exact int8 CMux scan with the
     batch axis widened to B * lev_decomp_length (tgsw_intern_mul == extern_mul
     on every TLev row, tlev.jl:88-95).
   * `tlev_extern_mul` contracts gadget digits against the TLev sample itself —
     a *runtime* ciphertext — so its kernels are limb-packed in-graph
     (ops/poly.pack_kernels_traced) instead of at keygen; still exact int8
-    MXU arithmetic, where the reference pays an f64 FFT round trip.
+    arithmetic, where the reference pays an f64 FFT round trip.
   * All keygen products are host-side exact; uni/pk/shared kernels pre-pack
     to int8 once.
 """
@@ -51,9 +51,9 @@ from .samples import MKLweSample, mk_lwe_noiseless_trivial
 
 def _stream_chunk() -> int:
     """Step-chunk size for the streamed gsw F-block scans. The default (8)
-    wedged the XLA:TPU AOT compiler at the 4-party registry set in r4
-    (4 attempts, R4_RESULTS) — the TORUS_KMS_STREAM_CHUNK env knob lets the
-    perf harness retry with a different chunk geometry without a code edit."""
+    once wedged an ahead-of-time compiler at the 4-party registry set — the
+    TORUS_KMS_STREAM_CHUNK env knob lets the perf harness retry with a
+    different chunk geometry without a code edit."""
     return int(os.environ.get("TORUS_KMS_STREAM_CHUNK", "8"))
 
 
@@ -109,7 +109,7 @@ class KMSCloudKey:
     ``gsw_sel`` is the F-block fast backend for the hot per-party TLev/single
     rotates (VERDICT r3 item 4): the per-step 64-bit TGSW kernels as compact
     limb lines, expanded per step chunk at rotate time and contracted as
-    block-circulant int8 MXU matmuls with shift-combined wide digits
+    block-circulant int8 matmuls with shift-combined wide digits
     (Bg up to 2^13) — bit-identical to the conv scan. The runtime-TLev
     relinearisation (tlev_extern_mul) cannot pre-pack and stays on the
     batched-kernel path; it runs once per party per bootstrap, not per
@@ -283,7 +283,7 @@ def _lev_rotate_streamed(gsw_part, bara_p, B: int, params: SchemeParamsKMS,
         lev.reshape(B * llev, 2, N), gsw_part,
         jnp.broadcast_to(bara_p[:, None], (B, llev, n)).reshape(B * llev, n),
         geom, gp.decomp_length, gp.log2_base, gp.offset,
-        chunk=chunk, use_pallas=False)
+        chunk=chunk)
     return acc.reshape(B, llev, 2, N)
 
 
@@ -385,7 +385,7 @@ def kms_blind_rotate(acc, ck: KMSCloudKey, bara, fast_boot: bool = True):
             gp = params.tgsw
             sacc = fblock.blind_rotate_streamed(
                 sacc, ck.gsw_sel[:n], bara[:, 0], geom, gp.decomp_length,
-                gp.log2_base, gp.offset, chunk=_stream_chunk(), use_pallas=False)
+                gp.log2_base, gp.offset, chunk=_stream_chunk())
         else:
             kernels = ck.gsw_kern[:n]
             bara_steps = jnp.swapaxes(bara[:, 0], 0, 1)
@@ -414,9 +414,9 @@ def kms_blind_rotate(acc, ck: KMSCloudKey, bara, fast_boot: bool = True):
 # Split-phase dispatch: one compiled program PER BOOTSTRAP PHASE
 # ---------------------------------------------------------------------------
 # The monolithic jitted KMS gate at >=4-party registry sets (uni l>=5 + gsw
-# streamed at N=2048) crashes the XLA:TPU AOT compile service
-# ("tpu_compile_helper subprocess exit code 1" — r4: 4 attempts, r5: retried
-# post relin-rework, same crash). The per-phase programs each compile fine
+# streamed at N=2048) crashed the ahead-of-time compile service of the
+# accelerator this path was written for (before and after the relin rework).
+# Whether XLA:GPU compiles the fused gate is not yet measured. The per-phase programs each compile fine
 # (benchmarks/kms_compile_bisect.py), so this path dispatches the gate as
 # P + 2 cached programs: pre (mod-switch + test vector), the fast-boot
 # single-key rotate + uni entry, one SHARED party step (the party index and
@@ -474,7 +474,7 @@ def _jit_split_gsw(params: SchemeParamsKMS, chunk: int):
             [jnp.zeros((B, 1, N), acc.dtype), tv[:, None]], axis=1)
         sacc = fblock.blind_rotate_streamed(
             sacc, gsw_part, bara0, geom, gp.decomp_length, gp.log2_base,
-            gp.offset, chunk=chunk, use_pallas=False)
+            gp.offset, chunk=chunk)
         zeros = jnp.zeros((B, P, N), acc.dtype)
         e = jnp.concatenate([zeros, sacc[:, 0][:, None]], axis=1)
         f = jnp.concatenate([zeros, sacc[:, 1][:, None]], axis=1)

@@ -1,6 +1,6 @@
 """Multikey LWE samples as batched pytrees.
 
-TPU-native rework of `MKLweSample` (3-gen-mk-tfhe/src/mk_internals.jl:23-51):
+Rework of `MKLweSample` (3-gen-mk-tfhe/src/mk_internals.jl:23-51):
 the mask is a (parties, n) matrix per ciphertext — here batched as
 a: (..., parties, n), b: (...,) so thousands of MK ciphertexts ride one XLA
 program. Phase = b − Σ_p <a_p, s_p> (mk_lwe_phase, mk_internals.jl:85-91).

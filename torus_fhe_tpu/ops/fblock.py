@@ -1,26 +1,25 @@
-"""Block-circulant ("F-block") bootstrapping-key layout for MXU blind rotation.
+"""Block-circulant ("F-block") bootstrapping-key layout for GEMM blind rotation.
 
 The negacyclic external product against a *fixed* kernel polynomial k is a
 matmul by the N x N negacirculant matrix M[u, t] = ext[(t - u) mod 2N] with
 ext = [k, -k].  Tiling M into bs x bs blocks, block (i, j) depends only on
 delta = (j - i) mod (2N/bs): there are just D = 2N/bs distinct blocks per
 kernel line.  Storing those D blocks per (row-poly r, kernel byte-limb
-column) yields an MXU-native bootstrapping-key layout where every CMux step
-is pure (B, R*bs) @ (R*bs, ncols*bs) int8 matmuls with exact int32
-accumulation — no convolution lowering, no runtime circulant gathers.
+column) yields a bootstrapping-key layout where every CMux step is one
+(B*nb, R*D*bs) @ (R*D*bs, ncols*bs) int8 GEMM with exact int32 accumulation
+— no convolution lowering, no runtime circulant gathers of the key.
 
-Kernel limb columns are *per output poly* (``geom.cols``): with a quantized
-bootstrapping key (mask polys rounded to multiples of 2^16 BEFORE the body is
-computed — see boot/bootstrap.bootstrap_keygen) the mask needs only its top
-two byte-limbs and the body its top three, so the 128-bit set runs 5 columns
-instead of 8 with NO approximation inside the product at all: the only
-noise added is the benign body-rounding at keygen (~sigma_bk), and security
-strictly improves (the mask's noise-to-modulus ratio grows).
+Kernel limb columns are *per output poly* (``geom.cols``): every mask poly
+keeps all of its byte limbs; the body may drop its low ``drop_limbs`` bytes,
+which keygen rounds to zero (boot/bootstrap.bootstrap_keygen), so the
+product stays exact on the rounded key and the only noise added is that
+rounding (~sigma_bk at one byte). At tfhe_128_tpu_fast that is 2 masks x 4
+limbs + 3 body limbs = 11 columns.
 
 This replaces the reference's per-gate f64 FFT externs
-(3-gen-mk-tfhe/src/polynomials.jl:208-242, bootstrap.jl:19-45) with a design
-that keeps the MXU busy: per step the matrix side streams once from HBM
-regardless of batch, so throughput is compute-bound for batch >= ~128.
+(3-gen-mk-tfhe/src/polynomials.jl:208-242, bootstrap.jl:19-45): per step the
+key side streams once from device memory regardless of batch, so large
+batches are bound by the int8 GEMM rather than by memory.
 """
 
 from __future__ import annotations
@@ -98,8 +97,8 @@ def seq_perm(D: int) -> np.ndarray:
     In this order, the kernel rows needed for output block j — blocks
     delta=(j-i) mod D for digit blocks i = 0..nb-1 — sit at consecutive
     positions m = (i-j) mod D, so each output block's contraction is one or
-    two *contiguous* long-K matmuls instead of nb short ones (MXU-internal
-    accumulation replaces nb-1 VPU adds per block).
+    two *contiguous* long-K matmuls instead of nb short ones (the GEMM's
+    own accumulation replaces nb-1 elementwise adds per block).
     """
     return (-np.arange(D)) % D
 
@@ -127,14 +126,14 @@ def build_sel(samples: np.ndarray, geom: FBlockGeometry) -> np.ndarray:
 
 
 def expand_fblock_chunk(sel_chunk, geom: FBlockGeometry) -> jax.Array:
-    """Expand compact kernel lines into the MXU F-block layout ON DEVICE,
+    """Expand compact kernel lines into the F-block layout ON DEVICE,
     jit-compatible (the streamed-key path's inner expansion).
 
     sel_chunk: (cs, R, 2N, ncols) int8. Returns (cs, D*R*bs, ncols*bs) int8
     in seq_perm delta order — bit-identical to the matching slice of
     build_fblocks. The expansion is bs static rolls of the line axis (block
     row p of every delta block is the line rolled by p), i.e. pure
-    slice/concat/transpose: bandwidth-optimal on TPU, no gather.
+    slice/concat/transpose, no gather.
     """
     cs, R, twoN, ncols = sel_chunk.shape
     D, bs = geom.D, geom.bs
@@ -211,7 +210,7 @@ def contract_rows_fblock(d8, fstep, geom: FBlockGeometry, dtype=jnp.int32):
     d8: (B, R, N) int8 rows (row r = digit level x poly, the TGsw order);
     fstep: (D*R*bs, ncols*bs) int8 in seq_perm order. Returns (B, C, N):
     out[c] = sum_r rows_r (*) K_{r,c}, the negacyclic products realised as
-    block-circulant MXU matmuls with exact int32 accumulation.
+    one block-circulant int8 GEMM with exact int32 accumulation.
     """
     B = d8.shape[0]
     nb, D, bs, R, C = geom.nb, geom.D, geom.bs, geom.R, geom.C
@@ -263,9 +262,7 @@ def blind_rotate_fblock(acc_a, fb, bara, geom: FBlockGeometry,
 
     acc_a: (B, C, N) torus; fb: (n, D*R*bs, ncols*bs) int8 in seq_perm order;
     bara: (B, n). Exact per-step semantics identical to bootstrap.mux_rotate
-    on the same (quantized) key.  Works on any backend (CPU tests use it
-    directly); the Pallas kernel in ops/pallas_rotate.py is the fused TPU
-    version.
+    on the same (body-rounded) key.
     """
     # digits wider than a byte split into shift-combined int8 blocks inside
     # apply_fblock — no base restriction
@@ -283,8 +280,7 @@ def blind_rotate_fblock(acc_a, fb, bara, geom: FBlockGeometry,
 
 def blind_rotate_streamed(acc_a, sel, bara, geom: FBlockGeometry,
                           decomp_length: int, log2_base: int, offset: int,
-                          *, chunk: int = 64, stepvec=None,
-                          use_pallas: bool | None = None):
+                          *, chunk: int = 64):
     """Blind rotate against the COMPACT key, expanding F-blocks on the fly in
     step chunks — the large-party multikey answer: an 8-party production
     F-block key is ~72 GB expanded (parallel/mk_pipeline.py) but ~0.6 GB
@@ -293,32 +289,18 @@ def blind_rotate_streamed(acc_a, sel, bara, geom: FBlockGeometry,
     pre-expanded key. Replaces the reference's sequential party loop
     (3-gen-mk-tfhe/src/3gen_mk_internals.jl:66-95) at any party count.
 
-    sel: (steps, R, 2N, ncols) int8 (build_sel); bara: (B, steps) int32.
-    ``stepvec=(mu32, barb)`` builds the initial accumulator (acc_a None), else
-    acc_a: (B, C, N) int32. Bit-identical to blind_rotate_fblock /
-    blind_rotate_pallas on the same key (pad steps are exact identities:
-    bara=0 and zero kernel digits).
+    sel: (steps, R, 2N, ncols) int8 (build_sel); bara: (B, steps) int32;
+    acc_a: (B, C, N) torus. Bit-identical to blind_rotate_fblock on the same
+    key (pad steps are exact identities: bara=0 and zero kernel digits).
     """
     steps = sel.shape[0]
     B = bara.shape[0]
-    N, C = geom.N, geom.C
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     spad = (-steps) % chunk
     if spad:
         sel = jnp.concatenate(
             [sel, jnp.zeros((spad,) + sel.shape[1:], sel.dtype)], axis=0)
         bara = jnp.concatenate(
             [bara, jnp.zeros((B, spad), bara.dtype)], axis=1)
-    acc = acc_a
-    if acc is None:
-        # explicit initial accumulator (the per-chunk scan body below is
-        # uniform, so the in-kernel stepvec mode does not apply)
-        mu32, barb = stepvec
-        dt = jnp.int32 if geom.bits == 32 else jnp.int64
-        tv = jnp.broadcast_to(jnp.asarray(mu32, dt), (B, N))
-        tv = poly.mul_by_monomial(tv, -jnp.asarray(barb, jnp.int32))
-        acc = jnp.zeros((B, C, N), dt).at[:, C - 1].set(tv)
     geom_c = geom._replace(n=chunk)
     n_chunks = (steps + spad) // chunk
     sel_c = sel.reshape((n_chunks, chunk) + sel.shape[1:])
@@ -330,20 +312,9 @@ def blind_rotate_streamed(acc_a, sel, bara, geom: FBlockGeometry,
     def body(acc, xs):
         sel_k, bara_k = xs
         fb_k = expand_fblock_chunk(sel_k, geom)
-        if use_pallas:
-            from .pallas_rotate import blind_rotate_pallas
-
-            # explicit-acc mode carries a (C, bt, N) input block in VMEM, so
-            # cap the batch tile below the stepvec-mode default — at bt=4096
-            # the acc input alone would be 32 MB
-            acc = blind_rotate_pallas(acc, fb_k, bara_k, geom_c,
-                                      decomp_length, log2_base, offset,
-                                      b_tile=min(1024, max(8, B)),
-                                      interleave=4)
-        else:
-            acc = blind_rotate_fblock(acc, fb_k, bara_k, geom_c,
-                                      decomp_length, log2_base, offset)
+        acc = blind_rotate_fblock(acc, fb_k, bara_k, geom_c,
+                                  decomp_length, log2_base, offset)
         return acc, None
 
-    acc, _ = lax.scan(body, acc, (sel_c, bara_c))
+    acc, _ = lax.scan(body, acc_a, (sel_c, bara_c))
     return acc

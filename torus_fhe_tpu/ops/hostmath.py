@@ -1,7 +1,7 @@
 """Exact host-side (numpy) negacyclic arithmetic for keygen-scale work.
 
 Key generation is a one-time, host-friendly job whose outputs get packed into
-MXU kernel layouts anyway (ops/poly.pack_kernels_host), so its polynomial
+int8 kernel layouts anyway (ops/poly.pack_kernels_host), so its polynomial
 products are computed here in numpy: each operand is split into 16-bit limbs
 and convolved with f64 FFTs — every partial product stays far below the
 53-bit mantissa (|limb_a * limb_b| * N <= 2^32 * 2^12 = 2^44), so rounding

@@ -1,6 +1,6 @@
 """Device meshes and sharded gate execution.
 
-TPU-native replacement for the reference's parallel runtimes (SURVEY.md §2c):
+Replacement for the reference's parallel runtimes (SURVEY.md §2c):
 OpenMP `parallel for` over parties / gate batches (src/
 threshold_decryption_functions.cpp:407, src/KNN_medical_data.cpp:681) and the
 Julia Distributed.jl fan-out (3-gen-mk-tfhe/VolumeMatching.jl:1-81). Instead of
@@ -17,7 +17,7 @@ threads and RPC, one `jax.sharding.Mesh` spans the chips:
     threshold_decryption_functions.cpp:423-431).
 
 Multi-host: the same mesh built from `jax.devices()` after
-`jax.distributed.initialize()` spans DCN; nothing below changes.
+`jax.distributed.initialize()` spans every host; nothing below changes.
 """
 
 from __future__ import annotations
@@ -36,24 +36,13 @@ def make_mesh(n_batch: int | None = None, n_party: int = 1,
               devices: Sequence[jax.Device] | None = None) -> Mesh:
     """Build a (batch, party) mesh over the available devices.
 
-    With ``n_batch=None`` all remaining devices go to the batch axis.
+    With ``n_batch=None`` all remaining devices go to the batch axis. The
+    cards of a host reach each other all to all (NVLink), so the layout is a
+    plain reshape of the device list.
     """
-    explicit = devices is not None
     devices = list(devices if devices is not None else jax.devices())
     if n_batch is None:
         n_batch = len(devices) // n_party
-    if not explicit and n_batch * n_party == len(devices):
-        # ICI-topology-aware layout: on a real TPU slice a naive reshape of
-        # jax.devices() can straddle rings; create_device_mesh orders axes so
-        # neighbouring mesh coordinates are ICI neighbours.
-        try:
-            from jax.experimental import mesh_utils
-
-            use = mesh_utils.create_device_mesh((n_batch, n_party),
-                                                devices=devices)
-            return Mesh(use, (BATCH_AXIS, PARTY_AXIS))
-        except Exception:
-            pass  # heterogeneous/virtual platforms: fall through
     use = np.asarray(devices[: n_batch * n_party]).reshape(n_batch, n_party)
     return Mesh(use, (BATCH_AXIS, PARTY_AXIS))
 
@@ -91,8 +80,8 @@ def init_distributed(coordinator_address: str | None = None,
                      process_id: int | None = None) -> bool:
     """Multi-host bring-up (the Distributed.jl `addprocs` analog,
     3-gen-mk-tfhe/VolumeMatching.jl:1-8): call once per host before building
-    meshes; afterwards ``jax.devices()`` spans every host over DCN and
-    `make_mesh` needs no changes.
+    meshes; afterwards ``jax.devices()`` spans every host and `make_mesh`
+    needs no changes.
 
     Arguments default to the standard JAX env vars
     (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID); on a

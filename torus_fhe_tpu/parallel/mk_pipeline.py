@@ -2,20 +2,21 @@
 
 The AKÖ multikey blind rotate is a strictly sequential chain of parties*n
 CMux steps (mk_blind_rotate_3gen, 3-gen-mk-tfhe/src/3gen_mk_internals.jl:78-84)
-— but its KEY MATERIAL is the scaling problem on TPU: the expanded F-block
-form of an 8-party production key is ~72 GB, far beyond one chip's HBM.
+— but its KEY MATERIAL is the scaling problem: the expanded F-block form of
+an 8-party production key is ~72 GB, beyond one card's 80 GB once anything
+else is resident.
 
-The TPU-native layout: shard the F-block key along the *party* axis of the
+The layout: shard the F-block key along the *party* axis of the
 mesh (each chip holds its parties' n steps, ~9 GB each) and pipeline the
 accumulators through the chips GPipe-style — microbatch m enters party 0,
 rotates through its n steps, then `ppermute`s to party 1's chip, while
 party 0 starts microbatch m+1. With M microbatches over P parties the
 pipeline bubble is the standard (P-1)/(M+P-1); all cross-chip traffic is the
-(Bm, C, N) int32 accumulator riding the ICI ring once per party — a few MB
+(Bm, C, N) int32 accumulator passed between cards once per party — a few MB
 per hop, vs gigabytes of key that never move.
 
-This is the round-3 answer to "multikey ≥4 parties has no fast TPU path":
-one chip cannot hold the fast key, a mesh can. Bit-exact vs the single-chip
+This gives multikey at >=4 parties a fast path when one card cannot hold the
+fast key: a mesh can. Bit-exact vs the single-chip
 hi-word fast path (asserted in tests/test_mk_pipeline.py on the virtual
 8-CPU mesh) because the step order is identical — party-major, matching
 MKLweSample's (parties, n) mask layout.
@@ -134,10 +135,10 @@ def mk_blind_rotate_pipelined(fb_sharded, bara, barb, mu32: int, params,
 
     Schedule: T = M + P - 1 ticks. At tick t, the chip holding party p
     rotates microbatch (t - p) through its n local CMux steps and hands the
-    accumulator to party p+1 over the ICI (`ppermute`). Party 0 seeds each
+    accumulator to party p+1 (`ppermute`). Party 0 seeds each
     incoming microbatch with the X^{-barb} [mu..mu] step vector; party P-1
     banks finished microbatches. Inactive (bubble) ticks compute on zeros —
-    branch-free, the XLA/TPU way.
+    branch-free.
     """
     assert mesh.shape[PARTY_AXIS] == parties, (mesh.shape, parties)
     B = bara.shape[0]
@@ -240,4 +241,6 @@ def mk_bootstrap_pipelined(ck: MKCloudKey, fb_sharded, mu, x, mesh: Mesh,
                                     microbatches=microbatches)
     u = rlwe_extract_sample(RLweSample(acc))
     u = LweSample(u.a.reshape(lead + u.a.shape[-1:]), u.b.reshape(lead))
-    return mk_keyswitch(ck, u)
+    # the rotate's output is replicated over the mesh; the keyswitch runs
+    # where keygen committed the table
+    return mk_keyswitch(ck, jax.device_put(u, ck.ks_mat.sharding))

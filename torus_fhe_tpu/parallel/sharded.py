@@ -1,6 +1,6 @@
 """Party-axis sharded execution: `shard_map` + `psum` over the device mesh.
 
-TPU-native replacement for the reference's cross-party reductions:
+Replacement for the reference's cross-party reductions:
 
 * the multikey keyswitch sums per-party contributions
   ``result += keyswitch(ks[p], a_p)`` (mk_keyswitch_3gen,
@@ -14,7 +14,7 @@ TPU-native replacement for the reference's cross-party reductions:
 
 Here each mesh slice along the ``party`` axis owns its parties' key material
 (keyswitch tables / key shares), computes its contributions locally, and the
-cross-party sum is ONE `psum` riding the ICI — no host round-trips. Every
+cross-party sum is ONE `psum` over the mesh — no host round-trips. Every
 function is the bit-exact equal of its single-device counterpart (asserted in
 tests/test_multichip.py on a virtual 8-device mesh).
 """

@@ -1,6 +1,6 @@
 """Ring-LWE keys and samples over negacyclic polynomial rings.
 
-TPU-native rework of 3-gen-mk-tfhe/src/rlwe.jl. An RLWE sample is stored as a
+Rework of 3-gen-mk-tfhe/src/rlwe.jl. An RLWE sample is stored as a
 single array ``a`` of shape (..., k+1, N): mask polynomials 0..k-1 plus the
 body polynomial at index k — mirroring the reference's mask_size+1 vector
 (rlwe.jl:47-56) but flattened for vectorised math.

@@ -1,9 +1,9 @@
 """TGSW (gadget) samples and the external product.
 
-TPU-native rework of 3-gen-mk-tfhe/src/tgsw.jl. A TGSW sample is the array of
-(decomp_length, mask_size+1) RLWE samples; its "transformed" form on TPU is
+Rework of 3-gen-mk-tfhe/src/tgsw.jl. A TGSW sample is the array of
+(decomp_length, mask_size+1) RLWE samples; its "transformed" form here is
 not an FFT image but the pre-packed int8 limb kernels consumed by the exact
-MXU convolution (ops/poly.py) — the role the reference's
+int8 product (ops/poly.py) — the role the reference's
 TransformedTGswSample plays for its FFT backend (tgsw.jl:47-55).
 """
 
@@ -30,7 +30,7 @@ class TGswSample(NamedTuple):
 
 @dataclass
 class PackedTGsw:
-    """MXU-ready TGSW: int8 limb kernels for `negacyclic_extern_product`.
+    """Product-ready TGSW: int8 limb kernels for `negacyclic_extern_product`.
 
     kernels: (..., (k+1) * n_limbs, l*(k+1), N) int8 — out-features first,
     reduction rows (i, j) second, flipped window last.
@@ -83,7 +83,7 @@ def tgsw_encrypt(key, messages, alpha: float, rlwe_key: RLweKey,
 
 def pack_tgsw(sample: TGswSample, tgsw_params: TGswParams,
               drop_limbs: int = 0) -> PackedTGsw:
-    """Host-side packing of TGSW samples into MXU conv kernels.
+    """Host-side packing of TGSW samples into int8 limb kernels.
 
     The external product contracts decomposition digits (rows r = (i, j))
     against RLWE row polys producing k+1 output polys, so the kernel tensor is

@@ -1,6 +1,6 @@
 """Additive n-of-n key splitting with smudging — the TwoTwo/NN family.
 
-TPU-native rework of the reference's additive-split experiments:
+Rework of the reference's additive-split experiments:
 
 * ``src/TwoTwo.cpp`` — 2-of-2 additive split of an LWE key (:24-87) and of a
   TLWE key (:89-169): the key is split as s = s1 + s2 over the torus; each
@@ -14,8 +14,8 @@ TPU-native rework of the reference's additive-split experiments:
   parties 2..20 x bound to find the max tolerable smudging per party count
   (:117-127).
 
-TPU design: the party axis is a leading batch axis — all partials are one
-einsum/negacyclic product on the MXU, and on a pod slice the party axis maps
+Design: the party axis is a leading batch axis — all partials are one
+einsum/negacyclic product, and on several devices the party axis maps
 onto the `party` mesh axis with the combine expressed as a psum
 (parallel/mesh.py). Everything is exact wrapping integer arithmetic.
 """
@@ -79,7 +79,7 @@ def lwe_partial_decrypt(sample: LweSample, shares: AdditiveShares, bound: float,
     shares_arr = jnp.asarray(shares.shares)
     p = shares_arr.shape[0]
     dtype = sample.b.dtype
-    # (p, ...) = contraction of (..., n) with (p, n) — one MXU matmul
+    # (p, ...) = contraction of (..., n) with (p, n) — one matmul
     partial = jnp.einsum("...n,pn->p...", sample.a.astype(dtype), shares_arr.astype(dtype))
     err = trng.gaussian_torus(rng_key, 0, bound, (p,) + sample.b.shape, dtype)
     if sparse_coords is not None:

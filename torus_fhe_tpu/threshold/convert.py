@@ -1,6 +1,6 @@
 """LWE <-> ring-LWE conversion.
 
-TPU-native rework of `TLweFromLwe` / `TLweKeyFromLweKey`
+Rework of `TLweFromLwe` / `TLweKeyFromLweKey`
 (src/Convert.cpp:12-27, src/libthfhe.cpp:340-356): an LWE ciphertext under an
 n-coefficient key embeds into a degree-N=n ring ciphertext by the anti-cyclic
 reversal a'[0] = a[0], a'[i] = -a[N-i], so that the constant coefficient of

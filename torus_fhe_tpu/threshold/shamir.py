@@ -1,6 +1,6 @@
 """Shamir (t,n) secret sharing of LWE key files over Z_8191.
 
-TPU-native rework of src/KeySplit.cpp: each key coefficient becomes the
+Rework of src/KeySplit.cpp: each key coefficient becomes the
 constant term of a random degree-(t-1) polynomial over the prime field
 P = 8191; shards are evaluations at n distinct random points; any t shards
 reconstruct via Lagrange interpolation at 0. Evaluation is one Vandermonde

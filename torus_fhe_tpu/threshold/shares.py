@@ -1,16 +1,16 @@
 """Benaloh–Leichter (t,T)-threshold sharing of ring-LWE secret keys.
 
-TPU-native rework of the reference's threshold key-sharing layer
+Rework of the reference's threshold key-sharing layer
 (src/threshold_decryption_functions.cpp:4-354, src/libthfhe.cpp:80-267).
 The access structure is the monotone formula OR over all C(p,t) groups of
 (AND over the group's t parties); its Benaloh–Leichter distribution matrix M
 is block-structured (optAndCombineT/optOrCombineT,
 threshold_decryption_functions.cpp:113-156), and the share computation is the
 integer matmul  S = M · ρ  — the reference's cblas_dgemm hot spot (:194-222)
-— which here rides the MXU as one int32 `jnp.dot`.
+— which here is one int32 `jnp.dot`.
 
 Two equivalent generators, as in the reference:
-  * `share_secret`          — materialise M and ρ, one MXU matmul (:269-285)
+  * `share_secret`          — materialise M and ρ, one matmul (:269-285)
   * `share_secret_streaming`— per-group on-the-fly ρ, O(k·t) memory per group
                               (`shareSecret2`, :287-336), vectorised over all
                               groups at once here.
@@ -104,7 +104,7 @@ def build_distribution_matrix(t: int, k: int, p: int) -> np.ndarray:
 
 @dataclass
 class ShareSet:
-    """Repo of key shares, the TPU-side `shared_key_repo`
+    """Repo of key shares, the device-side `shared_key_repo`
     (src/threshold_decryption_vars.hpp:10-11): (party, group) -> (k, N) int."""
 
     t: int
@@ -149,7 +149,7 @@ def _distribute(S: np.ndarray, t: int, p: int, k: int) -> ShareSet:
 
 
 def share_secret(key, t: int, p: int, rng_key) -> ShareSet:
-    """Matrix-form sharing: S = M·ρ on the MXU (`shareSecret`,
+    """Matrix-form sharing: S = M·ρ as one matmul (`shareSecret`,
     threshold_decryption_functions.cpp:269-285).
 
     key: (k, N) int array (ring key coefficients). ρ's first k rows are the

@@ -1,6 +1,6 @@
 """Statistical noise / wrong-decryption measurement harness.
 
-TPU-native rework of the reference's measurement suites
+Rework of the reference's measurement suites
 (3-gen-mk-tfhe/measurements/test_suites/*, e.g.
 measurements_us_simplified_3.jl:66-117): per parameter set, run N trials of
 encrypt → bootstrap → phase, record the torus noise of fresh and bootstrapped
@@ -114,9 +114,8 @@ def measure_single_key(key, params, trials: int = 1000) -> NoiseReport:
     from ..lwe import lwe_phase
 
     k1, k2, k3 = jax.random.split(key, 3)
-    on_tpu = jax.devices()[0].platform == "tpu"
-    sk, ck = api.make_key_pair(k1, params,
-                               forms=("fblock",) if on_tpu else ("conv",))
+    # the F-block key: the form the gates' rotate resolver runs
+    sk, ck = api.make_key_pair(k1, params, forms=("fblock",))
 
     msgs = jax.random.bernoulli(k2, 0.5, (trials,))
     ct = api.encrypt(k3, sk, msgs)
@@ -177,12 +176,13 @@ def measure_multikey(key, params, parties: int, trials: int = 1000,
     classes, BK/KSK sizes, timings). ``scheme``: "3gen" | "ccs" | "kms".
 
     ``fast_form``: for 3gen, measure the hi-word F-block fast path (includes
-    its BK-rounding noise — the shipped TPU configuration) instead of the
+    its BK-rounding noise — the shipped fast configuration) instead of the
     exact 64-bit scan; default: fast when the set supports it.
 
     ``cache_path`` (3gen only): serialize round-trip for the cloud key, so
     the tens-of-minutes host keygen at production >=16-party sets can run
-    once on CPU (``keygen_only=True``) and the trial batch on TPU loads it.
+    once on CPU (``keygen_only=True``) and the trial batch on the device
+    loads it.
     Party secret keys are cheap and rebuilt deterministically from ``key``."""
     from ..mk.samples import mk_encrypt, mk_lwe_phase
 
@@ -204,7 +204,7 @@ def measure_multikey(key, params, parties: int, trials: int = 1000,
             forms = ("fblock",) if fb_bytes <= 10 * 2**30 else ("fbstream",)
         elif fast_form and mk_fb_stream_supported(params):
             # wide-digit (Bg>2^8) sets: the exact 64-bit streamed form — the
-            # form the >=16-party TPU rows actually run (hi-word rounding is
+            # form the >=16-party rows actually run (hi-word rounding is
             # noise-unsafe there, keys3gen.mk_fb_supported)
             forms = ("fbstream",)
         else:

@@ -1,25 +1,22 @@
 """Tracing / profiling aux subsystem (SURVEY §5: per-kernel breakdown).
 
 The reference instruments with wall-clock `@elapsed` / BenchmarkTools
-(3-gen-mk-tfhe/perf_comp.jl, measurements/*); on TPU the equivalent
-ground truth is an XLA device trace. This module wraps `jax.profiler` so any
-flow can be traced with one context manager, and adds a trace-event
-summariser that turns the captured .trace.json.gz into a per-op-category
-time breakdown (MXU matmul vs VPU elementwise vs copy/infeed) — the roofline
-evidence VERDICT round 1 asked for.
+(3-gen-mk-tfhe/perf_comp.jl, measurements/*); here the ground truth is the
+profiler's device trace. This module wraps `jax.profiler` so any flow can be
+traced with one context manager, and reduces the captured ``.xplane.pb`` to a
+per-op and per-category device-time breakdown plus the device's busy and idle
+share over the traced window.
 
 Usage:
-    with device_trace("/tmp/trace"):
+    with device_trace("trace_dir"):
         out = step(ck, cx, cy); out.b.block_until_ready()
-    print(summarize_trace("/tmp/trace"))
+    print(format_summary(summarize_trace("trace_dir")))
 """
 
 from __future__ import annotations
 
 import contextlib
 import glob
-import gzip
-import json
 import os
 import time
 from collections import defaultdict
@@ -50,86 +47,110 @@ def timed(label: str, sink: dict | None = None):
         print(f"[timed] {label}: {dt:.4f}s")
 
 
-def _trace_files(logdir: str):
-    return glob.glob(os.path.join(
-        logdir, "**", "*.trace.json.gz"), recursive=True)
+def _load_xplane(logdir: str):
+    from jax.profiler import ProfileData
+
+    files = sorted(glob.glob(os.path.join(logdir, "**", "*.xplane.pb"),
+                             recursive=True), key=os.path.getmtime)
+    if not files:
+        raise FileNotFoundError(f"no .xplane.pb under {logdir}")
+    return ProfileData.from_file(files[-1])
 
 
+def trace_lanes(logdir: str) -> list[tuple[str, str, int, float]]:
+    """Every (plane, line, events, total us) of the newest trace: the map to
+    read before trusting which lines `summarize_trace` counts."""
+    return [(plane.name, line.name, len(evs),
+             sum(e.duration_ns for e in evs) / 1e3)
+            for plane in _load_xplane(logdir).planes
+            for line in plane.lines
+            for evs in [list(line.events)]]
+
+
+def _op_lines(plane):
+    """The lines of ``plane`` whose events are individual device ops.
+
+    A GPU plane (``/device:GPU:N``) has one line per CUDA stream
+    ("Stream #13(Compute,Memset)"), whose events are the kernels XLA
+    launched, named after their fusion or library kernel. On the CPU backend
+    ops run on the XLA compute threads."""
+    lines = list(plane.lines)
+    streams = [ln for ln in lines if ln.name.startswith("Stream")]
+    if streams:
+        return streams
+    return [ln for ln in lines if ln.name.startswith("tf_XLA")]
+
+
+# (substring of the kernel name, category); the first match wins
 _CATEGORIES = (
-    ("fusion", "fusion/elementwise"),
-    ("dot", "matmul (MXU)"),
-    ("conv", "conv (MXU)"),
-    ("custom-call", "custom call (pallas kernel)"),
-    ("copy", "copy/layout"),
-    ("dynamic-update", "dynamic update"),
+    ("gemm", "GEMM"),
+    ("dot", "GEMM"),
+    ("cudnn", "convolution"),
+    ("convolution", "convolution"),
+    ("nccl", "collective"),
     ("all-reduce", "collective"),
     ("all-gather", "collective"),
-    ("infeed", "host transfer"),
-    ("outfeed", "host transfer"),
+    ("collective-permute", "collective"),
+    ("memset", "copy/memset"),
+    ("memcpy", "copy/memset"),
+    ("copy", "copy/memset"),
+    ("transpose", "copy/memset"),
+    ("gather", "gather fusion"),
+    ("fusion", "elementwise fusion"),
 )
 
 
-def summarize_trace(logdir: str, top: int = 15) -> dict:
-    """Aggregate device-side trace events by op name.
+def _busy_ns(intervals) -> int:
+    """Length of the union of (start, end) intervals."""
+    busy, end = 0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy
 
-    Returns {"total_device_us", "by_op": [(name, us, pct)], "by_category"}.
-    Only events on device lanes (TensorCore / XLA Ops planes) are counted.
+
+def summarize_trace(logdir: str, top: int = 15) -> dict:
+    """Reduce the newest trace under ``logdir`` to device time.
+
+    Returns {"total_device_us", "window_us", "idle_share", "by_op":
+    [(name, us, pct)], "by_category"}. Device planes are ``/device:*``; with
+    none (CPU backend) the host compute threads stand in. ``idle_share`` is
+    1 - busy/window on the busiest plane, where busy is the union of its op
+    intervals and the window runs from its first op start to its last op end.
     """
-    files = _trace_files(logdir)
-    if not files:
-        raise FileNotFoundError(f"no .trace.json.gz under {logdir}")
+    space = _load_xplane(logdir)
+    planes = [p for p in space.planes if p.name.startswith("/device:")]
+    if not planes:
+        planes = [p for p in space.planes if p.name.startswith("/host:CPU")]
     op_us: dict[str, float] = defaultdict(float)
-    for path in files:
-        with gzip.open(path, "rt") as fh:
-            data = json.load(fh)
-        events = data.get("traceEvents", [])
-        # find process ids whose name says device/XLA Ops
-        dev_pids = set()
-        op_tids = {}  # pid -> set of op-lane tids (excludes Modules/Steps)
-        for ev in events:
-            if ev.get("ph") != "M":
-                continue
-            nm = ev.get("args", {}).get("name", "")
-            if ev.get("name") == "process_name":
-                # TPU: per-device TensorCore planes; CPU backend: '/host:CPU'
-                if any(k in nm for k in ("TPU", "XLA Ops", "Device",
-                                         "/device:", "/host:")):
-                    dev_pids.add(ev.get("pid"))
-            elif ev.get("name") == "thread_name":
-                # 'XLA Modules'/'Steps' lanes span the per-op events on the
-                # 'XLA Ops'/TensorCore lanes; counting them double-counts.
-                # CPU backend: compute runs on the tf_XLAEigen worker pool.
-                if (any(k in nm for k in ("XLA Ops", "TensorCore", "Ops",
-                                          "XLAEigen"))
-                        and "Module" not in nm and "Step" not in nm):
-                    op_tids.setdefault(ev.get("pid"), set()).add(ev.get("tid"))
-        # when any plane exposes true op lanes (TPU 'XLA Ops' / CPU Eigen
-        # workers), count ONLY those — a pid with no op lane (e.g. the
-        # '/host:CPU' python lane next to a TPU plane) would otherwise leak
-        # host wall-time spans into the device total
-        have_op_lanes = any(op_tids.get(p) for p in dev_pids)
-        for ev in events:
-            if ev.get("ph") == "X" and ev.get("pid") in dev_pids:
-                tids = op_tids.get(ev.get("pid"))
-                if tids is None:
-                    if have_op_lanes:
-                        continue
-                elif ev.get("tid") not in tids:
-                    continue  # an enclosing Modules/Steps span, not an op
-                op_us[ev.get("name", "?")] += float(ev.get("dur", 0.0))
+    idle, window_us = None, 0.0
+    for plane in planes:
+        intervals = []
+        for line in _op_lines(plane):
+            for ev in line.events:
+                op_us[ev.name] += ev.duration_ns / 1e3
+                intervals.append((ev.start_ns, ev.start_ns + ev.duration_ns))
+        if not intervals:
+            continue
+        window = max(e for _, e in intervals) - min(s for s, _ in intervals)
+        if window / 1e3 > window_us:
+            window_us = window / 1e3
+            idle = 1.0 - _busy_ns(intervals) / window if window else 0.0
     total = sum(op_us.values())
-    by_op = sorted(op_us.items(), key=lambda kv: -kv[1])[:top]
     by_cat: dict[str, float] = defaultdict(float)
     for name, us in op_us.items():
         low = name.lower()
-        for key, cat in _CATEGORIES:
-            if key in low:
-                by_cat[cat] += us
-                break
-        else:
-            by_cat["other"] += us
+        cat = next((c for key, c in _CATEGORIES if key in low), "other")
+        by_cat[cat] += us
+    by_op = sorted(op_us.items(), key=lambda kv: -kv[1])[:top]
     return {
         "total_device_us": round(total, 1),
+        "window_us": round(window_us, 1),
+        "idle_share": None if idle is None else round(idle, 4),
         "by_op": [(n, round(us, 1), round(100 * us / total, 1) if total else 0)
                   for n, us in by_op],
         "by_category": {k: round(v, 1) for k, v in
@@ -138,7 +159,9 @@ def summarize_trace(logdir: str, top: int = 15) -> dict:
 
 
 def format_summary(summary: dict) -> str:
-    lines = [f"device total: {summary['total_device_us']/1e3:.2f} ms"]
+    lines = [f"device total: {summary['total_device_us']/1e3:.2f} ms over a "
+             f"{summary['window_us']/1e3:.2f} ms window, idle share "
+             f"{summary['idle_share']}"]
     lines.append("by category:")
     for cat, us in summary["by_category"].items():
         lines.append(f"  {cat:28s} {us/1e3:10.2f} ms")

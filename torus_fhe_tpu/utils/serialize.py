@@ -1,6 +1,6 @@
 """Key and ciphertext serialization (the cloud/client split).
 
-TPU-native replacement for the reference's tfhe_io file round-trips
+Replacement for the reference's tfhe_io file round-trips
 (`export_tfheGateBootstrappingSecretKeySet_toFile` in src/KeyGen.cpp:41-51,
 per-bit ciphertext arrays in src/bootstrap_modules.cpp:99-103, Shamir shards
 in src/KeySplit.cpp:120-150). Every stage of a pipeline can round-trip through
@@ -115,9 +115,9 @@ def load_secret_key(path: str):
 
 def save_cloud_key(path: str, ck) -> None:
     """Store the *compact* cloud key: keyswitch table + raw TGSW samples
-    (~20 MB at the 128-bit set). Either MXU form — conv kernels or the
-    F-block/Pallas layout — is rebuilt from the samples on load, so a saved
-    key drives the fast TPU path after a round-trip (the reference's tfhe_io
+    (~20 MB at the 128-bit set). Either product form — conv kernels or the
+    F-block layout — is rebuilt from the samples on load, so a saved
+    key drives the fast path after a round-trip (the reference's tfhe_io
     role, src/KeyGen.cpp:41-51). Records which forms were materialised at
     save time as the default rebuild set."""
     bk = ck.bootstrap_key
@@ -138,7 +138,7 @@ def save_cloud_key(path: str, ck) -> None:
 
 
 def load_cloud_key(path: str, forms=None, fblock_device=None):
-    """Load a cloud key, rebuilding the requested MXU form(s) from the
+    """Load a cloud key, rebuilding the requested product form(s) from the
     compact samples (default: the forms that were materialised at save).
     ``fblock_device``: where to expand the F-block form (the expanded key is
     ~3.3 GB — build it where it will be used)."""
@@ -185,7 +185,7 @@ def load_lwe(path: str):
 
 def save_mk_cloud_key(path: str, ck) -> None:
     """3gen MK cloud key. Prefers the compact raw samples (rebuilds any
-    MXU form on load); falls back to the conv kernels for keys generated
+    product form on load); falls back to the conv kernels for keys generated
     without keep_samples."""
     mapping = {"ks": ck.ks_mat}
     forms = [f for f, v in (("conv", ck.bk_kernels), ("fblock", ck.bk_fb),
